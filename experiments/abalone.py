@@ -26,8 +26,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from scfgp_tpu.data.datasets import load_abalone
-    from scfgp_tpu.utils.experiment import run_sweep
+    from scfgp.data.datasets import load_abalone
+    from scfgp.utils.experiment import run_sweep
 
     n_train = int(0.8 * 4177)
     # Reference sweep: feature_size = sqrt(N)*(i+1)/3, i=0..9 (abalone.py:36)

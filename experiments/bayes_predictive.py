@@ -73,8 +73,7 @@ def _co2_basis_factory(n_total):
 
 # Arm budget philosophy: MAP/ensemble use each experiment's committed
 # optimizer recipe; Bayes budgets are FIXED per dataset (not tuned per
-# seed) and sized so the fused programs stay well under the ~100 s
-# execution limit (fit_bayes auto-segments on TPU regardless).
+# seed) and sized so each fused sampler program stays short.
 DATASETS = {
     "boston": dict(S=20, M=50, ens=dict(k=16, mix_best=8),
                    opt=dict(max_iter=500, cvrg_tol=1e-5, max_cvrg=18)),
@@ -122,13 +121,13 @@ CAMPAIGN = "r05b"
 
 
 def _loader(name):
-    from scfgp_tpu.data import datasets as ds
+    from scfgp.data import datasets as ds
     return {"boston": ds.load_boston, "abalone": ds.load_abalone,
             "kin8nm": ds.load_kin8nm, "co2": ds.load_co2}[name]
 
 
 def _metrics(mu, std, ys):
-    from scfgp_tpu.utils.metrics import regression_metrics
+    from scfgp.utils.metrics import regression_metrics
     m = regression_metrics(mu, std, ys)
     return {"NMSE": m["NMSE"], "MNLP": m["MNLP"], "RMSE": m["RMSE"]}
 
@@ -146,7 +145,7 @@ def _chain_bootstrap(model, Xv, yv, n_boot=200, seed=0):
     """
     import jax.numpy as jnp
     import numpy as np
-    from scfgp_tpu.bayes.predictive import predictive_mixture
+    from scfgp.bayes.predictive import predictive_mixture
 
     samples = np.asarray(model.bayes_result.samples)     # (Ns, C, P)
     ns, C, P = samples.shape
@@ -178,7 +177,7 @@ def _chain_bootstrap(model, Xv, yv, n_boot=200, seed=0):
 
 def run_dataset(name, seeds, quick=False, verbose=True):
     import numpy as np
-    from scfgp_tpu import SCFGP
+    from scfgp import SCFGP
 
     cfg = DATASETS[name]
     rows = []
@@ -325,7 +324,7 @@ def main():
     outpath = os.path.join(out, "results_tiny.json" if args.tiny
                            else "results.json")
     results = {}
-    # Crash-resume: a TPU-worker fault mid-campaign keeps finished datasets.
+    # Crash-resume: a fault mid-campaign keeps finished datasets.
     if os.path.exists(outpath) and not args.tiny:
         try:
             with open(outpath) as f:
@@ -352,8 +351,8 @@ def main():
         import jax
         payload = {"backend": jax.default_backend(), "quick": args.quick,
                    "campaign": CAMPAIGN,
-                   "arithmetic": ("r05 quality-gated mm_precision dispatch"
-                                  " (1-pass MXU GEMMs for non-composite"
+                   "arithmetic": ("quality-gated mm_precision dispatch"
+                                  " ('default' GEMMs for non-composite"
                                   " fits, true f32 for the co2 composite;"
                                   " ops/dispatch.py)"),
                    "bayes_budgets": BAYES,

@@ -1,7 +1,7 @@
-"""bf16 MXU-GEMM accuracy sweep across the four benchmark experiments.
+"""bf16-GEMM accuracy sweep across the four benchmark experiments.
 
-docs/TODO.md open item 5: ``mm_dtype=jnp.bfloat16`` buys ~+10% step
-throughput on TPU v5e (docs/RESULTS.md) by feeding the two O(N K^2) GEMMs
+docs/TODO.md open item 5: ``mm_dtype=jnp.bfloat16`` buys step throughput
+(ops/dispatch.py table) by feeding the two O(N K^2) GEMMs
 (Gram, latent variance — ``models/objective.py::_gemm``) bf16 inputs with
 f32 accumulation.  Before making it a default we need to know what it does
 to the *converged metrics* on the reference's four benchmarks
@@ -15,8 +15,8 @@ accuracy-neutral on a dataset if |mean delta| < across-seed std of the f32
 metric for RMSE, NMSE and MNLP.
 
 Runs on CPU by default (numerics question, not a speed question; XLA CPU
-implements bf16 dots bit-identically in semantics to the TPU path:
-bf16-rounded inputs, f32 accumulation).
+implements bf16 dots with the accelerator semantics: bf16-rounded inputs,
+f32 accumulation).
 
 Usage: python experiments/bf16_accuracy_sweep.py [--trials N] [--quick]
 Writes experiments/results/bf16_sweep.json and prints a per-dataset table.
@@ -36,17 +36,17 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--trials", type=int, default=5)
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default backend (TPU) instead of CPU")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the default backend (GPU) instead of CPU")
     args = ap.parse_args()
-    if not args.tpu:
+    if not args.gpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import (load_abalone, load_boston,
-                                         load_co2, load_kin8nm)
+    from scfgp import SCFGP
+    from scfgp.data.datasets import (load_abalone, load_boston,
+                                     load_co2, load_kin8nm)
 
     max_iter = 60 if args.quick else 200
     trials = 2 if args.quick else args.trials

@@ -20,8 +20,8 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import load_boston, surrogate_floor
+from scfgp import SCFGP
+from scfgp.data.datasets import load_boston, surrogate_floor
 
 ALGO = {"algo": "adam",
         "algo_params": {"learning_rate": 0.01, "beta1": 0.9,

@@ -36,8 +36,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from scfgp_tpu.data.datasets import load_boston
-    from scfgp_tpu.utils.experiment import run_sweep
+    from scfgp.data.datasets import load_boston
+    from scfgp.utils.experiment import run_sweep
 
     trials = args.trials or (2 if args.quick else 50)
     nfeats = [10, 30] if args.quick else [10, 20, 30, 40, 50]
@@ -45,7 +45,7 @@ def main():
         # Reference optimizer (boston_housing.py:24-40) with patience
         # extended (max_iter 200->500, max_cvrg 8->18): measured mean
         # NMSE/floor improves 1.5x -> 1.3x on the surrogate (docs/RESULTS.md
-        # floor table); iterations are ~free on the fused TPU loop.
+        # floor table); iterations are ~free on the fused device loop.
         "algo": {"algo": "adam",
                  "algo_params": {"learning_rate": 0.01, "beta1": 0.9,
                                  "beta2": 0.999, "epsilon": 1e-8}},

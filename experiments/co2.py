@@ -23,8 +23,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from scfgp_tpu import SCFGP, Visualizer
-    from scfgp_tpu.data.datasets import load_co2
+    from scfgp import SCFGP, Visualizer
+    from scfgp.data.datasets import load_co2
 
     Xt, yt, Xv, yv, meta = load_co2(seed=0)
     sparsity, nfeats = (20, 20) if args.quick else (100, 50)
@@ -63,7 +63,7 @@ def main():
     import json
     import jax.numpy as jnp
     import numpy as np
-    from scfgp_tpu.data.datasets import surrogate_floor
+    from scfgp.data.datasets import surrogate_floor
 
     omega = 2 * np.pi * (Xt.shape[0] + Xv.shape[0] - 1) / 12.0
 

@@ -6,7 +6,7 @@ Three predictors per boston split:
 
   floor    — ``datasets.surrogate_floor``: the closed-form conditional mean
              of the known generative process (no predictor beats it),
-  exact_gp — ARD-RBF GP, ML-II hyperparameters (``scfgp_tpu.baselines``):
+  exact_gp — ARD-RBF GP, ML-II hyperparameters (``scfgp.baselines``):
              certifies the floor is *reachable*,
   scfgp    — the framework at the boston experiment config,
   scfgp_ensemble — fit_ensemble(k=16, mix_best=8) with a linear extra
@@ -40,9 +40,9 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.baselines import ExactGP
-    from scfgp_tpu.data.datasets import load_boston, surrogate_floor
+    from scfgp import SCFGP
+    from scfgp.baselines import ExactGP
+    from scfgp.data.datasets import load_boston, surrogate_floor
 
     algo = {"algo": "adam",
             "algo_params": {"learning_rate": 0.01, "beta1": 0.9,

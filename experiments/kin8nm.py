@@ -29,8 +29,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from scfgp_tpu.data.datasets import load_kin8nm
-    from scfgp_tpu.utils.experiment import run_sweep
+    from scfgp.data.datasets import load_kin8nm
+    from scfgp.utils.experiment import run_sweep
 
     n_train = int(0.8 * 8192)
     all_sizes = [int(np.sqrt(n_train) * (i + 1) / 3) for i in range(10)]

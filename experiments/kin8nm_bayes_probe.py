@@ -41,10 +41,10 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
     import numpy as np
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import (load_boston, load_kin8nm,
-                                         surrogate_floor)
-    from scfgp_tpu.utils.metrics import regression_metrics
+    from scfgp import SCFGP
+    from scfgp.data.datasets import (load_boston, load_kin8nm,
+                                     surrogate_floor)
+    from scfgp.utils.metrics import regression_metrics
 
     loader = {"kin8nm": load_kin8nm, "boston": load_boston}[args.dataset]
     Xt, yt, Xv, yv, meta = loader(seed=0)

@@ -52,8 +52,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import load_kin8nm, surrogate_floor
+    from scfgp import SCFGP
+    from scfgp.data.datasets import load_kin8nm, surrogate_floor
 
     Xt, yt, Xv, yv, meta = load_kin8nm(seed=args.seed)
     fl = surrogate_floor("kin8nm", Xv, yv)
@@ -68,7 +68,7 @@ def main():
         print(json.dumps({name: rows[name]}), flush=True)
 
     if not args.skip_exact_gp:
-        from scfgp_tpu.baselines import ExactGP
+        from scfgp.baselines import ExactGP
         for ntr in (1000, 2500):
             t0 = time.time()
             gp = ExactGP(steps=150).fit(Xt[:ntr], yt[:ntr])

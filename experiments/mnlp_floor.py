@@ -59,9 +59,9 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data import datasets as D
-    from scfgp_tpu.data.datasets import surrogate_floor
+    from scfgp import SCFGP
+    from scfgp.data import datasets as D
+    from scfgp.data.datasets import surrogate_floor
 
     out = {}
     for name in args.datasets:

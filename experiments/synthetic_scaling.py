@@ -5,10 +5,10 @@ rows of X are sharded over a 1-D `data` mesh, sufficient statistics are
 all-reduced, and we measure fused train-step throughput at 1, 2, 4, ... all
 devices, reporting weak-scaling efficiency (constant rows PER device).
 
-On real multi-host TPU this script runs unchanged after
-``jax.distributed.initialize()`` (the mesh picks up all global devices); in
-this repo's environment it demonstrates the collective path on the virtual
-CPU mesh (``--cpu-devices 8``) and measures single-chip throughput on TPU.
+On several GPUs (one process owning a host's four, or several processes
+after ``scfgp.parallel.init_distributed``) this script runs unchanged (the
+mesh picks up all global devices); on the virtual CPU mesh
+(``--cpu-devices 8``) it demonstrates the collective path only.
 
 Usage:
   python experiments/synthetic_scaling.py --cpu-devices 8 --rows-per-device 8192
@@ -44,10 +44,10 @@ def main():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from scfgp_tpu.models.params import init_params
-    from scfgp_tpu.opt.optimizers import make_optimizer
-    from scfgp_tpu.parallel.mesh import make_mesh, shard_rows
-    from scfgp_tpu.parallel.dp import make_dp_train_step
+    from scfgp.models.params import init_params
+    from scfgp.opt.optimizers import make_optimizer
+    from scfgp.parallel.mesh import make_mesh, shard_rows
+    from scfgp.parallel.dp import make_dp_train_step
 
     all_devices = jax.devices()
     D, S, M = args.dim, args.sparsity, args.nfeats

@@ -1,6 +1,6 @@
 // Native numeric-table parser for the data-ingestion path.
 //
-// The Python loaders (scfgp_tpu/data/datasets.py::_parse_table) sniff
+// The Python loaders (scfgp/data/datasets.py::_parse_table) sniff
 // delimiters/headers/comments with per-token Python float() calls — fine at
 // UCI scale, minutes at the N=1e6 streaming-scale CSVs this framework
 // targets (SURVEY.md §5 long-context: dataset size N is the scaling axis).

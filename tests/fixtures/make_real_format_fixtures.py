@@ -23,9 +23,9 @@ OUT = os.path.join(HERE, "real_formats")
 def main():
     import sys
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
-    from scfgp_tpu.data.datasets import (_synthetic_abalone,
-                                         _synthetic_boston,
-                                         _synthetic_co2, _synthetic_kin8nm)
+    from scfgp.data.datasets import (_synthetic_abalone,
+                                     _synthetic_boston,
+                                     _synthetic_co2, _synthetic_kin8nm)
     os.makedirs(OUT, exist_ok=True)
     n = 80  # enough rows for a split + tiny fit
 

@@ -59,10 +59,10 @@ def golden_cost(theta, X, y, D, S, M):
     return (nlml + penalty) / X.shape[0]
 
 
-def golden_predict(theta, Xs, D, S, M, alpha, Li):
-    """Predictive mean/std transliteration (reference SCFGP.py:138-148)."""
+def golden_features(theta, X, D, S, M):
+    """Trig feature map transliteration (reference SCFGP.py:88-102)."""
     i = 3
-    b = theta[1]; c = theta[2]
+    b = theta[1]
     l_F = theta[i:i + D * S].reshape(D, S); i += D * S
     r_F = theta[i:i + M * S].reshape(M, S); i += M * S
     l_p = theta[i:i + S]; i += S
@@ -70,11 +70,15 @@ def golden_predict(theta, Xs, D, S, M, alpha, Li):
     F = l_F.dot(r_F.T)
     l_FC = l_p[None, :] - np.mean(l_F, axis=0)[None, :]
     FC = p[None, :] - np.mean(F, axis=0)[None, :]
-    sig_f = np.exp(b)
-    noise = np.log(1 + np.exp(c))
-    FFs = np.concatenate((Xs.dot(l_F) + l_FC, Xs.dot(F) + FC), axis=1)
-    Phis = np.concatenate((np.cos(FFs), np.sin(FFs)), axis=1)
-    Phis = sig_f * np.sqrt(2.0 / M) * Phis
+    FF = np.concatenate((X.dot(l_F) + l_FC, X.dot(F) + FC), axis=1)
+    Phi = np.concatenate((np.cos(FF), np.sin(FF)), axis=1)
+    return np.exp(b) * np.sqrt(2.0 / M) * Phi
+
+
+def golden_predict(theta, Xs, D, S, M, alpha, Li):
+    """Predictive mean/std transliteration (reference SCFGP.py:138-148)."""
+    noise = np.log(1 + np.exp(theta[2]))
+    Phis = golden_features(theta, Xs, D, S, M)
     mu = Phis.dot(alpha)
     std = (noise * (1 + (Phis.dot(Li.T) ** 2).sum(1))) ** 0.5
     return mu, std

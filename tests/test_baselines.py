@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from scfgp_tpu.baselines import ExactGP, exact_gp_fit_predict
-from scfgp_tpu.data.datasets import load_boston, surrogate_floor
+from scfgp.baselines import ExactGP, exact_gp_fit_predict
+from scfgp.data.datasets import load_boston, surrogate_floor
 
 
 def test_exact_gp_recovers_sine_to_noise_floor():

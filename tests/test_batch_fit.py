@@ -7,8 +7,8 @@ coupled.  Sequential fit_fast with the same seeds is the oracle.
 
 import numpy as np
 
-from scfgp_tpu import SCFGP, fit_fast_batch
-from scfgp_tpu.data.datasets import synthetic_gp_rff
+from scfgp import SCFGP, fit_fast_batch
+from scfgp.data.datasets import synthetic_gp_rff
 
 
 def _make_splits(B, n=120, d=3):
@@ -89,7 +89,7 @@ def test_batched_trials_stay_independent():
 
 def test_run_sweep_batched_with_restarts(tmp_path):
     """The sweep harness's batched+restarts path produces a full summary."""
-    from scfgp_tpu.utils.experiment import run_sweep
+    from scfgp.utils.experiment import run_sweep
 
     def loader(seed=0):
         X, y = synthetic_gp_rff(n=140, d=3, s=3, m=6, seed=seed,
@@ -108,7 +108,7 @@ def test_run_sweep_batched_with_restarts(tmp_path):
 def test_fit_ensemble_mixture_and_roundtrip(tmp_path):
     """fit_ensemble: k restarts in one batched program, mixture prediction,
     checkpoint round-trip, and invalidation on refit."""
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
+    from scfgp.data.datasets import synthetic_gp_rff
     X, y = synthetic_gp_rff(n=180, d=3, s=3, m=6, seed=5, dtype=np.float64)
     Xt, yt, Xv, yv = X[:140], y[:140], X[140:], y[140:]
     m = SCFGP(sparsity=3, nfeats=6, seed=0)
@@ -137,7 +137,7 @@ def test_fit_ensemble_mixture_and_roundtrip(tmp_path):
 def test_batched_mesh_trial_parallelism_matches_unsharded():
     """mesh=: the trial axis shards over the 8-device mesh (with padding
     when B % devices != 0); results must match the unsharded batched run."""
-    from scfgp_tpu.parallel.mesh import make_mesh
+    from scfgp.parallel.mesh import make_mesh
 
     B = 5  # not a multiple of 8 -> exercises trial padding
     splits = _make_splits(B)

@@ -23,7 +23,7 @@ import os
 import numpy as np
 import pytest
 
-from scfgp_tpu.data import datasets
+from scfgp.data import datasets
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "real_formats")
@@ -153,7 +153,7 @@ def test_malformed_files_raise(tmp_path, monkeypatch):
 
 def test_real_branch_end_to_end_fit(real_data_dir):
     """load_* -> Scaler -> fit on the real branch: the full user path."""
-    from scfgp_tpu import SCFGP
+    from scfgp import SCFGP
     Xt, yt, Xv, yv, meta = datasets.load_abalone(seed=0)
     assert meta["source"] == "real"
     model = SCFGP(sparsity=4, nfeats=8)
@@ -175,8 +175,8 @@ def test_native_parser_matches_python_path(tmp_path):
     (None) on categorical files so loaders fall back."""
     import numpy as np
 
-    from scfgp_tpu.data.datasets import _numeric_block, _parse_table
-    from scfgp_tpu.data.native import get_lib, parse_numeric_table_native
+    from scfgp.data.datasets import _numeric_block, _parse_table
+    from scfgp.data.native import get_lib, parse_numeric_table_native
 
     if get_lib() is None:
         import pytest

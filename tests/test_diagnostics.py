@@ -6,8 +6,8 @@ targets (VERDICT r2 item 2's test plan), plus sampler divergence counts.
 import numpy as np
 import pytest
 
-from scfgp_tpu.bayes.diagnostics import (diagnose, ess_bulk, ess_mean,
-                                         ess_tail, split_rhat)
+from scfgp.bayes.diagnostics import (diagnose, ess_bulk, ess_mean,
+                                     ess_tail, split_rhat)
 
 
 def _iid_draws(t=500, c=4, p=3, seed=0):
@@ -98,7 +98,7 @@ def test_hmc_divergence_counting():
     import jax
     import jax.numpy as jnp
 
-    from scfgp_tpu.bayes import hmc_sample
+    from scfgp.bayes import hmc_sample
 
     # Benign standard normal, sane step size: zero divergences, R-hat -> 1.
     # num_integration_steps=7, NOT 8: on an isotropic Gaussian the adapted
@@ -130,7 +130,7 @@ def test_nuts_static_divergence_field():
     import jax
     import jax.numpy as jnp
 
-    from scfgp_tpu.bayes import nuts_sample_static
+    from scfgp.bayes import nuts_sample_static
 
     ld = lambda q: -0.5 * jnp.sum(q ** 2)
     init = jax.random.normal(jax.random.PRNGKey(0), (2, 3))

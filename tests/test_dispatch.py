@@ -1,24 +1,23 @@
-"""Measured-table implementation dispatch (ops/dispatch.py).
+"""Quality-gated implementation dispatch (ops/dispatch.py).
 
-The bf16 rule is pinned to the committed same-session bench matrix
-(experiments/results/bench_matrix.json): bf16 GEMMs only where they
-measurably win (N*(2K)^2 >= 6.8e10), f32 everywhere else.
+The bf16 rule: bf16 GEMM inputs only at N*(2K)^2 >= 6.8e10 (where the
+O(N K^2) GEMM work dominates), f32 everywhere else.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.ops.dispatch import (auto_mm_dtype, resolve_mm_dtype,
-                                    resolve_mm_precision)
+from scfgp import SCFGP
+from scfgp.ops.dispatch import (auto_mm_dtype, resolve_mm_dtype,
+                                resolve_mm_precision)
 
 
 def test_auto_rule_matches_measured_cells():
-    # measured-winner cells (bench_matrix.json)
-    assert auto_mm_dtype(65536, 2048) == jnp.bfloat16   # +12.2% measured
-    assert auto_mm_dtype(65536, 1024) == jnp.bfloat16   # +5.6% measured
-    # noise/f32-favored cells
+    # above the threshold
+    assert auto_mm_dtype(65536, 2048) == jnp.bfloat16
+    assert auto_mm_dtype(65536, 1024) == jnp.bfloat16
+    # below it
     assert auto_mm_dtype(8192, 500) is None
     assert auto_mm_dtype(8192, 1024) is None
     assert auto_mm_dtype(8192, 2048) is None
@@ -66,11 +65,11 @@ def test_auto_mm_dtype_is_composite_safe():
     m.set_data(rng.rand(65536, 3).astype(np.float32),
                rng.randn(65536).astype(np.float32))
     assert m.mm_dtype is None       # composite: never auto-bf16
-    assert m.mm_precision == "highest"  # composite: never auto-1-pass
+    assert m.mm_precision == "highest"  # composite: never auto-reduced
 
 
 def test_resolve_mm_precision_rules():
-    # "auto": quality-gated — 1-pass for ordinary fits, true f32 for
+    # "auto": quality-gated — reduced precision (TF32) for ordinary fits, true f32 for
     # composite models (ops/dispatch.py rationale).
     assert resolve_mm_precision("auto") == "default"
     assert resolve_mm_precision("auto", has_extra_basis=True) == "highest"
@@ -88,16 +87,16 @@ def test_model_mm_precision_resolves_at_set_data():
     rng = np.random.RandomState(2)
     m = SCFGP(sparsity=4, nfeats=10, seed=0)
     m.set_data(rng.rand(128, 3), rng.randn(128))
-    assert m.mm_precision == "default"  # shipped default: 1-pass MXU GEMMs
+    assert m.mm_precision == "default"  # shipped default: TF32 GEMMs on an H100
     m2 = SCFGP(sparsity=4, nfeats=10, seed=0, mm_precision=None)
     m2.set_data(rng.rand(128, 3), rng.randn(128))
     assert m2.mm_precision is None      # opt-out: global honest f32
 
 
 def test_precision_fallback_predicate():
-    """The runtime non-finite fallback arms ONLY for auto-resolved 1-pass
+    """The runtime non-finite fallback arms ONLY for auto-resolved reduced
     precision — explicit user settings are never overridden (measured
-    trigger: the reference's plain 1-D co2 config NaNs under 1-pass)."""
+    trigger: the reference's plain 1-D co2 config NaNs under reduced precision)."""
     rng = np.random.RandomState(4)
     X, y = rng.rand(64, 3), rng.randn(64)
     m = SCFGP(sparsity=4, nfeats=8, seed=0)
@@ -115,16 +114,16 @@ def test_precision_fallback_predicate():
 
 def test_precision_fallback_refits_at_true_f32(monkeypatch):
     """End-to-end: a fit whose objective goes non-finite under the auto
-    1-pass precision is refit once at true f32, with a warning."""
+    reduced precision is refit once at true f32, with a warning."""
     import pytest
-    import scfgp_tpu.models.model as mm
+    import scfgp.models.model as mm
 
     real = mm.loss_fn
 
     def poisoned(p, X, y, *a, **kw):
         c, aux = real(p, X, y, *a, **kw)
         if kw.get("mm_precision") == "default":
-            c = c * float("nan")  # simulate the 1-pass NaN cholesky class
+            c = c * float("nan")  # simulate the reduced-precision NaN cholesky class
         return c, aux
 
     real_jl = mm._jitted_loss
@@ -152,12 +151,12 @@ def test_precision_fallback_refits_at_true_f32(monkeypatch):
 
 def test_fit_bayes_auto_precision_stays_fit_only(monkeypatch):
     """Sampling is not fitting (round-5 measured: kin8nm Bayes arms
-    collapsed under auto 1-pass — the MH ratio exponentiates N-scaled
+    collapsed under auto reduced precision — the MH ratio exponentiates N-scaled
     cost differences): AUTO-resolved reduced precision must never reach
     the sampler's log-posterior; explicit settings still do."""
     import warnings
 
-    import scfgp_tpu.models.model as mm
+    import scfgp.models.model as mm
 
     seen = {}
     real = mm._bayes_runner
@@ -189,11 +188,11 @@ def test_fit_bayes_auto_precision_stays_fit_only(monkeypatch):
 
 def test_mm_precision_loss_agrees_on_cpu():
     """CPU f32 dots are true f32 at every precision setting — the dispatch
-    must be a numerical no-op here (the pass-count split exists on TPU
-    only), so the full fit path just runs and matches."""
+    must be a numerical no-op here (TF32 and bf16 passes exist on
+    accelerators only), so the full fit path just runs and matches."""
     import jax
-    from scfgp_tpu.models.objective import loss_fn
-    from scfgp_tpu.models.params import init_params
+    from scfgp.models.objective import loss_fn
+    from scfgp.models.params import init_params
 
     rng = np.random.RandomState(3)
     X = jnp.asarray(rng.rand(64, 3), jnp.float32)

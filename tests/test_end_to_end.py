@@ -14,9 +14,9 @@ slack).
 import numpy as np
 import pytest
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import (load_abalone, load_boston, load_co2,
-                                     surrogate_floor, synthetic_gp_rff)
+from scfgp import SCFGP
+from scfgp.data.datasets import (load_abalone, load_boston, load_co2,
+                                 surrogate_floor, synthetic_gp_rff)
 
 
 def test_recovers_gp_rff_data_to_noise_floor():
@@ -44,7 +44,7 @@ def test_boston_surrogate_reaches_measured_floor():
     for seed in range(3):
         Xt, yt, Xv, yv, meta = load_boston(seed=seed)
         floor = surrogate_floor("boston_housing", Xv, yv)
-        # f32 = the TPU production dtype (measured mean ratio 1.30 vs 1.53
+        # f32 = the accelerator production dtype (measured mean ratio 1.30 vs 1.53
         # under the conftest's x64 default — the early-stop trajectory
         # differs; the claim being pinned is the production config's).
         m = SCFGP(sparsity=20, nfeats=20, seed=seed, dtype=jnp.float32)
@@ -126,7 +126,7 @@ def test_kin8nm_m512_beats_exact_gp_band():
     experiments/results/kin8nm_floor/kin8nm_floor.json).  Pin the single
     fit under 4.5x."""
     import jax.numpy as jnp
-    from scfgp_tpu.data.datasets import load_kin8nm
+    from scfgp.data.datasets import load_kin8nm
     Xt, yt, Xv, yv, _ = load_kin8nm(seed=0)
     floor = surrogate_floor("kin8nm", Xv, yv)
     m = SCFGP(sparsity=20, nfeats=512, seed=0, dtype=jnp.float32)
@@ -143,7 +143,7 @@ def test_kin8nm_self_calibration():
     the model's own MSE) must stay small (measured 0.067 nats, seed 0).
     MNLP must also beat the best CONSTANT predictive (oracle-mean-free
     baseline) by a wide margin."""
-    from scfgp_tpu.data.datasets import load_kin8nm
+    from scfgp.data.datasets import load_kin8nm
     Xt, yt, Xv, yv, meta = load_kin8nm(seed=0)
     m = SCFGP(sparsity=20, nfeats=100, seed=0)
     m.fit_fast(Xt, yt, Xv, yv, obj="SCORE", max_iter=300)
@@ -228,7 +228,7 @@ def test_co2_composite_mnlp_at_floor_after_recalibration():
 
 
 def test_dataset_loaders_shapes():
-    from scfgp_tpu.data.datasets import load_abalone, load_kin8nm
+    from scfgp.data.datasets import load_abalone, load_kin8nm
     Xt, yt, Xv, yv, meta = load_boston(seed=1)
     assert Xt.shape[1] == 13 and Xt.shape[0] + Xv.shape[0] == 506
     Xt, yt, Xv, yv, meta = load_abalone(seed=1)
@@ -244,7 +244,7 @@ def test_bayes_predictive_artifact_claims():
     """Pin the round-4 posterior-predictive validation's headline claims
     against its committed artifact (docs/RESULTS.md round-4 section).
     These are artifact-consistency pins — the campaign itself needs the
-    TPU (experiments/bayes_predictive.py); this test guards against the
+    accelerator (experiments/bayes_predictive.py); this test guards against the
     artifact and the documented claims drifting apart.
 
     Claims: (1) on kin8nm, posterior mixing beats every point-estimate
@@ -325,8 +325,8 @@ def test_co2_bayes_predictive_recalibration_closes_mnlp():
     Point predictions must be untouched."""
     import warnings
     import jax.numpy as jnp
-    from scfgp_tpu.data.datasets import load_co2
-    from scfgp_tpu.utils.metrics import regression_metrics
+    from scfgp.data.datasets import load_co2
+    from scfgp.utils.metrics import regression_metrics
 
     Xt, yt, Xv, yv, meta = load_co2(seed=0)
     omega = 2 * np.pi * (Xt.shape[0] + Xv.shape[0] - 1) / 12.0
@@ -363,8 +363,8 @@ def test_co2_ensemble_recalibration_covers_all_members():
     closed to 0.06 — round-4 campaign).  Measured here: 1.72 -> 0.062."""
     import warnings
     import jax.numpy as jnp
-    from scfgp_tpu.data.datasets import load_co2
-    from scfgp_tpu.utils.metrics import regression_metrics
+    from scfgp.data.datasets import load_co2
+    from scfgp.utils.metrics import regression_metrics
 
     Xt, yt, Xv, yv, meta = load_co2(seed=0)
     omega = 2 * np.pi * (Xt.shape[0] + Xv.shape[0] - 1) / 12.0

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import synthetic_gp_rff
-from scfgp_tpu.models.objective import loss_fn
-from scfgp_tpu.opt.optimizers import make_optimizer
-from scfgp_tpu.opt.fused_loop import fused_optimize
+from scfgp import SCFGP
+from scfgp.data.datasets import synthetic_gp_rff
+from scfgp.models.objective import loss_fn
+from scfgp.opt.optimizers import make_optimizer
+from scfgp.opt.fused_loop import fused_optimize
 
 
 def test_fused_matches_host_loop_without_annealing():
@@ -16,7 +16,7 @@ def test_fused_matches_host_loop_without_annealing():
     the same sequence of adam+nesterov steps."""
     X, y = synthetic_gp_rff(n=150, d=3, s=3, m=6, seed=0, dtype=np.float32)
     X, y = jnp.asarray(X), jnp.asarray(y)
-    from scfgp_tpu.models.params import init_params
+    from scfgp.models.params import init_params
     params = init_params(jax.random.PRNGKey(0), 3, 3, 6, jnp.float32)
     tx = make_optimizer("adam", {"learning_rate": 0.01})
 
@@ -27,7 +27,7 @@ def test_fused_matches_host_loop_without_annealing():
         params, jax.random.PRNGKey(1))
 
     # host reference
-    from scfgp_tpu.opt.optimizers import tree_add
+    from scfgp.opt.optimizers import tree_add
     p_ref, st = params, tx.init(params)
     costs = []
     for _ in range(25):
@@ -62,7 +62,7 @@ def test_fit_fast_with_validation_objective():
 def test_fused_early_stopping_triggers():
     X, y = synthetic_gp_rff(n=120, d=2, s=2, m=4, seed=3, dtype=np.float32)
     X, y = jnp.asarray(X), jnp.asarray(y)
-    from scfgp_tpu.models.params import init_params
+    from scfgp.models.params import init_params
     params = init_params(jax.random.PRNGKey(2), 2, 2, 4, jnp.float32)
     tx = make_optimizer("adam", {"learning_rate": 0.01})
     vg = jax.value_and_grad(
@@ -79,8 +79,8 @@ def test_fused_runner_cached_across_models():
     """Two models with the same config/shapes must share ONE jitted runner
     with ONE trace (the reference's compiled-function-reuse across model
     instances, SCFGP.py:150-151; a fresh jit per fit would retrace)."""
-    from scfgp_tpu.models.model import _FUSED_RUNNERS
-    from scfgp_tpu import SCFGP
+    from scfgp.models.model import _FUSED_RUNNERS
+    from scfgp import SCFGP
 
     _FUSED_RUNNERS.clear()
     X, y = synthetic_gp_rff(n=200, d=3, s=3, m=8, seed=5)
@@ -102,9 +102,9 @@ def test_validated_fused_runner_reused_across_models():
     config with data + scaler state traced, so a second same-shape model
     (fresh split, fresh scalers) must hit the same compiled program."""
     import numpy as np
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.models import model as model_mod
-    from scfgp_tpu.data.datasets import load_boston
+    from scfgp import SCFGP
+    from scfgp.models import model as model_mod
+    from scfgp.data.datasets import load_boston
 
     model_mod._FUSED_RUNNERS.clear()
     for seed in (0, 1):

@@ -15,8 +15,8 @@ import os
 import numpy as np
 import pytest
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import synthetic_gp_rff
+from scfgp import SCFGP
+from scfgp.data.datasets import synthetic_gp_rff
 
 
 def _data():
@@ -150,7 +150,7 @@ def test_legacy_pickle_checkpoint_still_loads(tmp_path):
 def test_codec_roundtrip_nested_state():
     """utils/checkpoint codec: nested dict/list/tuple/NamedTuple/array
     round-trip, including numpy RandomState tuples and scalar types."""
-    from scfgp_tpu.utils.checkpoint import load_state, save_state
+    from scfgp.utils.checkpoint import load_state, save_state
     import tempfile
 
     rng = np.random.RandomState(5)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import synthetic_gp_rff, load_co2
-from scfgp_tpu.models.params import resolve_sparsity
+from scfgp import SCFGP
+from scfgp.data.datasets import synthetic_gp_rff, load_co2
+from scfgp.models.params import resolve_sparsity
 
 
 def test_resolve_sparsity():
@@ -80,7 +80,7 @@ def test_fit_bayes_hmc_and_predict_bayes():
     import os
     import tempfile
     import jax.numpy as jnp
-    from scfgp_tpu import SCFGP
+    from scfgp import SCFGP
 
     rng = np.random.RandomState(0)
     X = rng.rand(140, 2) * 4
@@ -137,7 +137,7 @@ def test_fit_bayes_vi_and_predict():
 def test_fit_bayes_tempered_smoke():
     """Tempered path through the model API builds an energy-matched ladder
     and returns finite draws with a measurable swap rate field."""
-    from scfgp_tpu import SCFGP
+    from scfgp import SCFGP
 
     rng = np.random.RandomState(1)
     X = rng.rand(100, 2) * 4

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu.models.params import (init_params, pack_params, unpack_params,
-                                     num_params)
-from scfgp_tpu.models.objective import (loss_fn, predict_f, fourier_features,
-                                        sufficient_stats, solve_posterior,
-                                        latent_moments, expected_nll_rows)
-from scfgp_tpu.ops.quadrature import expected_nll_rows_gh
+from scfgp.models.params import (init_params, pack_params, unpack_params,
+                                 num_params)
+from scfgp.models.objective import (loss_fn, predict_f, fourier_features,
+                                    sufficient_stats, solve_posterior,
+                                    latent_moments, expected_nll_rows)
+from scfgp.ops.quadrature import expected_nll_rows_gh
 
-from golden_numpy import golden_cost, golden_predict
+from golden_numpy import golden_cost, golden_features, golden_predict
 
 N, D, S, M = 40, 5, 4, 7
 
@@ -83,6 +83,19 @@ def test_closed_form_enll_equals_gauss_hermite():
     np.testing.assert_allclose(np.asarray(closed), np.asarray(gh), rtol=1e-12)
 
 
+@pytest.mark.parametrize("s,m", [(4, 7), (20, 44), (50, 200), (64, 192)])
+def test_fourier_features_match_golden_numpy(s, m):
+    """The feature map at 2(S+M) up to the bench width 500."""
+    rng = np.random.RandomState(s)
+    X = jnp.asarray(rng.randn(N, D), jnp.float64)
+    params = init_params(jax.random.PRNGKey(m), D, s, m, dtype=jnp.float64)
+    Phi = fourier_features(params, X)
+    assert Phi.shape == (N, 2 * (s + m))
+    theta = np.asarray(pack_params(params), np.float64)
+    ref = golden_features(theta, np.asarray(X), D, s, m)
+    np.testing.assert_allclose(np.asarray(Phi), ref, rtol=1e-10, atol=1e-13)
+
+
 def test_predict_matches_golden_numpy():
     X, y, params = _problem(seed=3)
     _, aux = loss_fn(params, X, y)
@@ -143,12 +156,12 @@ def test_phase_parameters_are_pure_gauge():
 
 
 def test_bf16_gemm_option_close_to_f32():
-    """mm_dtype=bfloat16 (MXU-native Gram/variance GEMMs with f32 accum)
+    """mm_dtype=bfloat16 (bf16 tensor-core Gram/variance GEMMs with f32 accum)
     must stay close to the f32 objective: small relative cost error and a
     near-parallel gradient."""
     import jax.numpy as jnp
-    from scfgp_tpu.models.objective import loss_fn
-    from scfgp_tpu.models.params import init_params
+    from scfgp.models.objective import loss_fn
+    from scfgp.models.params import init_params
 
     rng = np.random.RandomState(3)
     X = jnp.asarray(rng.rand(512, 6), jnp.float32)
@@ -167,11 +180,18 @@ def test_bf16_gemm_option_close_to_f32():
     assert cos > 0.99, f"bf16 gradient diverged from f32 (cos={cos:.4f})"
 
 
-def test_chol_and_inverse_vjp_matches_xla():
+def _spd(m, seed):
+    rng = np.random.RandomState(seed)
+    A = jnp.asarray(rng.randn(m, m), jnp.float64)
+    return A @ A.T + m * jnp.eye(m, dtype=jnp.float64), rng
+
+
+@pytest.mark.parametrize("m", [33, 128, 200, 384, 500])
+def test_chol_and_inverse_vjp_matches_xla(m):
     """The all-GEMM backward of chol_and_inverse must equal XLA's stock
     cholesky + triangular-solve VJP exactly (asymmetric cotangents too)."""
     import jax.numpy as jnp
-    from scfgp_tpu.models.objective import chol_and_inverse
+    from scfgp.models.objective import chol_and_inverse
 
     def ref(A):
         L = jnp.linalg.cholesky(A)
@@ -179,10 +199,7 @@ def test_chol_and_inverse_vjp_matches_xla():
             L, jnp.eye(A.shape[0], dtype=A.dtype), lower=True)
         return L, Li
 
-    rng = np.random.RandomState(11)
-    m = 33
-    A = jnp.asarray(rng.randn(m, m), jnp.float64)
-    A = A @ A.T + m * jnp.eye(m, dtype=jnp.float64)
+    A, rng = _spd(m, 11)
     gL = jnp.asarray(rng.randn(m, m), jnp.float64)
     gLi = jnp.asarray(rng.randn(m, m), jnp.float64)
     _, vjp_c = jax.vjp(chol_and_inverse, A)
@@ -191,3 +208,17 @@ def test_chol_and_inverse_vjp_matches_xla():
     a_r = vjp_r((gL, gLi))[0]
     np.testing.assert_allclose(np.asarray(a_c), np.asarray(a_r),
                                rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("m", [128, 200, 384, 500])
+def test_chol_and_inverse_forward_matches_numpy(m):
+    """(L, L^-1) against NumPy float64 at the hot path's 2(S+M) sizes."""
+    from scfgp.models.objective import chol_and_inverse
+
+    A, _ = _spd(m, m)
+    L, Li = chol_and_inverse(A)
+    L_ref = np.linalg.cholesky(np.asarray(A))
+    np.testing.assert_allclose(np.asarray(L), L_ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(Li), np.linalg.inv(L_ref),
+                               rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(np.asarray(Li @ L), np.eye(m), atol=1e-12)

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import synthetic_gp_rff
-from scfgp_tpu.models.objective import loss_fn
+from scfgp import SCFGP
+from scfgp.data.datasets import synthetic_gp_rff
+from scfgp.models.objective import loss_fn
 
 
 def _data():

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu.opt import optimizers as O
+from scfgp.opt import optimizers as O
 
 
 def _step(tx, params, grads, n=1):

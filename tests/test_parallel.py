@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu.models.params import init_params
-from scfgp_tpu.models.objective import loss_fn
-from scfgp_tpu.opt.optimizers import make_optimizer, tree_add
-from scfgp_tpu.parallel.mesh import make_mesh, shard_rows
-from scfgp_tpu.parallel.dp import (make_dp_train_step, make_dp_eval,
-                                   shardmap_loss)
+from scfgp.models.params import init_params
+from scfgp.models.objective import loss_fn
+from scfgp.opt.optimizers import make_optimizer, tree_add
+from scfgp.parallel.mesh import make_mesh, shard_rows
+from scfgp.parallel.dp import (make_dp_train_step, make_dp_eval,
+                               shardmap_loss)
 
 N, D, S, M = 103, 6, 4, 9  # N deliberately not divisible by 8 (pad path)
 
@@ -101,9 +101,9 @@ def test_model_level_mesh_training_matches_single_device():
     single-device fused fit: same compiled program, rows sharded over the
     8-device mesh with zero-weight padding, GSPMD-inserted psums."""
     import numpy as np
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
-    from scfgp_tpu.parallel.mesh import make_mesh
+    from scfgp import SCFGP
+    from scfgp.data.datasets import synthetic_gp_rff
+    from scfgp.parallel.mesh import make_mesh
 
     X, y = synthetic_gp_rff(n=220, d=3, s=3, m=8, noise_std=0.1, seed=0)
     Xt, yt, Xv, yv = X[:180], y[:180], X[180:], y[180:]

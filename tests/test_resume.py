@@ -13,8 +13,8 @@ import os
 
 import numpy as np
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import synthetic_gp_rff
+from scfgp import SCFGP
+from scfgp.data.datasets import synthetic_gp_rff
 
 
 def _data():

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from scipy.stats import norm
 
-from scfgp_tpu.data.scaler import Scaler, ALGOS
+from scfgp.data.scaler import Scaler, ALGOS
 
 
 def _data(seed=0, n=200, d=4):
@@ -114,7 +114,7 @@ def test_transforms_are_jittable():
 
 def test_native_boxcox_agrees_with_scipy():
     """C++ grid+golden fit lands at (or below) the SciPy SLSQP objective."""
-    from scfgp_tpu.data.native import fit_boxcox_lambdas_native
+    from scfgp.data.native import fit_boxcox_lambdas_native
     from scipy.stats import skew
 
     X = _data(7, n=400, d=3)
@@ -124,7 +124,7 @@ def test_native_boxcox_agrees_with_scipy():
     if lams_native is None:
         import pytest
         pytest.skip("native library unavailable")
-    from scfgp_tpu.data.scaler import _fit_boxcox_lambdas
+    from scfgp.data.scaler import _fit_boxcox_lambdas
     lams_scipy = _fit_boxcox_lambdas(u)
     bc = lambda x, lm: (np.sign(x) * np.abs(x) ** lm - 1) / lm
 
@@ -139,7 +139,7 @@ def test_native_boxcox_agrees_with_scipy():
 
 
 def test_scaler_native_roundtrip():
-    from scfgp_tpu.data.native import get_lib
+    from scfgp.data.native import get_lib
     if get_lib() is None:
         import pytest
         pytest.skip("native library unavailable")

@@ -1,18 +1,18 @@
 """Bounded-execution segmented drivers (bayes/segmented.py): chunked
 warmup/sampling must equal one-shot in law — the adaptation carry is
 threaded exactly, so with matched step counts the ONLY difference is where
-the RNG keys split (VERDICT r3 item 7; CLAUDE.md ~100 s TPU worker-kill).
+the RNG keys split (VERDICT r3 item 7).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scfgp_tpu.bayes import (hmc_sample, hmc_sample_segmented,
-                             nuts_sample, nuts_sample_segmented,
-                             nuts_sample_static,
-                             nuts_sample_static_segmented,
-                             sgld_sample, sgld_sample_segmented)
+from scfgp.bayes import (hmc_sample, hmc_sample_segmented,
+                         nuts_sample, nuts_sample_segmented,
+                         nuts_sample_static,
+                         nuts_sample_static_segmented,
+                         sgld_sample, sgld_sample_segmented)
 
 COV = np.array([[1.0, 0.6, 0.0],
                 [0.6, 2.0, 0.3],

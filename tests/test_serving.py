@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from scfgp_tpu import SCFGP
-from scfgp_tpu.data.datasets import synthetic_gp_rff
-from scfgp_tpu.utils.serving import export_predictor, ServedPredictor
+from scfgp import SCFGP
+from scfgp.data.datasets import synthetic_gp_rff
+from scfgp.utils.serving import export_predictor, ServedPredictor
 
 
 def test_export_reload_predict_parity():

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu.models.params import init_params
-from scfgp_tpu.models.objective import loss_fn
-from scfgp_tpu.ops.streaming import loss_fn_streaming
+from scfgp.models.params import init_params
+from scfgp.models.objective import loss_fn
+from scfgp.ops.streaming import loss_fn_streaming
 
 D, S, M = 4, 3, 6
 
@@ -20,7 +20,8 @@ def _problem(n, seed=0):
     return X, y, p
 
 
-@pytest.mark.parametrize("n,block", [(100, 32), (256, 64), (50, 128)])
+@pytest.mark.parametrize("n,block", [(100, 32), (256, 64), (50, 128),
+                                     (97, 32), (130, 64), (255, 16)])
 def test_streaming_value_matches_dense(n, block):
     X, y, p = _problem(n)
     c_ref, aux_ref = loss_fn(p, X, y)
@@ -52,7 +53,7 @@ def test_streaming_with_weights():
 def test_streaming_sharded_matches_dense():
     """Streaming + DP composition on the 8-device mesh."""
     from jax.sharding import PartitionSpec as P
-    from scfgp_tpu.parallel.mesh import make_mesh, shard_rows
+    from scfgp.parallel.mesh import make_mesh, shard_rows
 
     X, y, p = _problem(160, seed=3)
     c_ref, _ = loss_fn(p, X, y)
@@ -66,22 +67,3 @@ def test_streaming_sharded_matches_dense():
         out_specs=P()))
     np.testing.assert_allclose(float(f(p, Xs, ys, ws)), float(c_ref),
                                rtol=1e-12)
-
-
-def test_streaming_with_pallas_stats():
-    """Streaming pass 1 through the fused Gram kernel (f32, interpret)."""
-    rng = np.random.RandomState(5)
-    X = jnp.asarray(rng.randn(200, D), jnp.float32)
-    y = jnp.asarray(rng.randn(200), jnp.float32)
-    p32 = init_params(jax.random.PRNGKey(5), D, S, M, jnp.float32)
-    c_ref, _ = loss_fn(p32, X, y)
-    c_str, _ = loss_fn_streaming(p32, X, y, block_size=64,
-                                 stats_impl="pallas")
-    np.testing.assert_allclose(float(c_str), float(c_ref), rtol=2e-4)
-    g_ref = jax.grad(lambda q: loss_fn(q, X, y)[0])(p32)
-    g_str = jax.grad(lambda q: loss_fn_streaming(
-        q, X, y, block_size=64, stats_impl="pallas")[0])(p32)
-    for name, a, b in zip(g_ref._fields, jax.tree.leaves(g_ref),
-                          jax.tree.leaves(g_str)):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=1e-2, atol=1e-3, err_msg=name)

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu.models.objective import loss_fn
-from scfgp_tpu.models.params import init_params
-from scfgp_tpu.opt.optimizers import make_optimizer, tree_add
-from scfgp_tpu.parallel.mesh import make_mesh2d
-from scfgp_tpu.parallel.tp import tp_loss, make_tp_train_step, shard_rows_2d
+from scfgp.models.objective import loss_fn
+from scfgp.models.params import init_params
+from scfgp.opt.optimizers import make_optimizer, tree_add
+from scfgp.parallel.mesh import make_mesh2d
+from scfgp.parallel.tp import tp_loss, make_tp_train_step, shard_rows_2d
 
 N, D, S, M = 97, 5, 4, 12  # S+M = 16: divisible by feature-axis sizes 2 and 4
 

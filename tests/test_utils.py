@@ -1,14 +1,18 @@
 """Profiling/debug utilities + typed configs + checkpoint-resume."""
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scfgp_tpu.config import (ModelConfig, OptimizerConfig, TrainConfig,
-                              MeshConfig, make_model, to_dict)
-from scfgp_tpu.utils.profiling import (time_fn, debug_numerics,
-                                       assert_deterministic)
+from scfgp.config import (ModelConfig, OptimizerConfig, TrainConfig,
+                          MeshConfig, make_model, to_dict)
+from scfgp.utils.profiling import (time_fn, debug_numerics,
+                                   assert_deterministic)
 
 
 def test_time_fn():
@@ -43,7 +47,7 @@ def test_configs_reproduce_reference_defaults():
 
 
 def test_make_model_and_config_driven_fit():
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
+    from scfgp.data.datasets import synthetic_gp_rff
     X, y = synthetic_gp_rff(n=150, d=3, s=3, m=8, seed=0)
     cfg = ModelConfig(sparsity=4, nfeats=8, seed=0)
     tcfg = TrainConfig(max_iter=40)
@@ -56,8 +60,8 @@ def test_make_model_and_config_driven_fit():
 def test_checkpoint_resume_training():
     """save -> load -> set_data -> optimize continues (reference couldn't
     resume without set_data either, SCFGP.py:296-310 + SURVEY quirk 6)."""
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
+    from scfgp import SCFGP
+    from scfgp.data.datasets import synthetic_gp_rff
     X, y = synthetic_gp_rff(n=200, d=3, s=3, m=8, seed=1)
     m1 = SCFGP(sparsity=4, nfeats=8, seed=0)
     m1.fit(X[:160], y[:160], max_iter=30)
@@ -74,8 +78,8 @@ def test_checkpoint_resume_training():
 
 def test_jsonl_logging_and_auto_checkpoint(tmp_path):
     import json as _json
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
+    from scfgp import SCFGP
+    from scfgp.data.datasets import synthetic_gp_rff
 
     X, y = synthetic_gp_rff(n=150, d=3, s=3, m=8, seed=0)
     log = str(tmp_path / "train.jsonl")
@@ -93,8 +97,8 @@ def test_jsonl_logging_and_auto_checkpoint(tmp_path):
 
 
 def test_visualizer_eval_plot_for_multidim_model(tmp_path):
-    from scfgp_tpu import SCFGP, Visualizer
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
+    from scfgp import SCFGP, Visualizer
+    from scfgp.data.datasets import synthetic_gp_rff
 
     X, y = synthetic_gp_rff(n=150, d=3, s=3, m=8, seed=0)
     viz = Visualizer(eval="NMSE")
@@ -107,7 +111,7 @@ def test_visualizer_eval_plot_for_multidim_model(tmp_path):
 
 
 def test_predict_before_fit_raises_clearly():
-    from scfgp_tpu import SCFGP
+    from scfgp import SCFGP
     m = SCFGP(sparsity=4, nfeats=8)
     m.set_data(np.random.rand(50, 3), np.random.rand(50))
     with pytest.raises(RuntimeError, match="before training"):
@@ -116,8 +120,8 @@ def test_predict_before_fit_raises_clearly():
 
 def test_float64_model_end_to_end():
     import jax.numpy as jnp
-    from scfgp_tpu import SCFGP
-    from scfgp_tpu.data.datasets import synthetic_gp_rff
+    from scfgp import SCFGP
+    from scfgp.data.datasets import synthetic_gp_rff
     X, y = synthetic_gp_rff(n=150, d=3, s=3, m=8, seed=0)
     m = SCFGP(sparsity=4, nfeats=8, seed=0, dtype=jnp.float64)
     m.fit(X[:120], y[:120], X[120:], y[120:], max_iter=40)
@@ -126,7 +130,7 @@ def test_float64_model_end_to_end():
 
 
 def test_scaler_1d_input():
-    from scfgp_tpu.data.scaler import Scaler
+    from scfgp.data.scaler import Scaler
     y = np.random.RandomState(0).gamma(2.0, 1.0, 200)
     sc = Scaler("auto-normal").fit(y)
     ty = np.asarray(sc.forward_transform(y))
@@ -137,8 +141,8 @@ def test_scaler_1d_input():
 def test_visualizer_training_gif(tmp_path):
     """record_every frames -> save_animation writes a multi-frame GIF (the
     offline analog of the reference's committed plot_training.gif)."""
-    from scfgp_tpu import SCFGP, Visualizer
-    from scfgp_tpu.data.datasets import load_co2
+    from scfgp import SCFGP, Visualizer
+    from scfgp.data.datasets import load_co2
 
     Xt, yt, Xv, yv, _ = load_co2(seed=0)
     viz = Visualizer(eval="NMSE", record_every=10)
@@ -153,10 +157,10 @@ def test_visualizer_training_gif(tmp_path):
 
 
 def test_run_cli_fused_and_config(tmp_path):
-    """python -m scfgp_tpu equivalent: run.main() with flags and with a
+    """python -m scfgp equivalent: run.main() with flags and with a
     config file; writes checkpoint + prints metrics."""
     import json
-    from scfgp_tpu.run import main
+    from scfgp.run import main
 
     out = tmp_path / "run"
     res = main(["--dataset", "co2", "--sparsity", "6", "--nfeats", "8",
@@ -181,7 +185,7 @@ def test_run_cli_bayes_bool_config_and_key_validation(tmp_path):
     fail with a clear SystemExit (round-1 ADVICE item 5)."""
     import json
     import pytest
-    from scfgp_tpu.run import main
+    from scfgp.run import main
 
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({
@@ -204,10 +208,58 @@ def test_run_cli_bayes_bool_config_and_key_validation(tmp_path):
 
 
 def test_package_forces_honest_f32_matmul_precision():
-    """scfgp_tpu import must set jax_default_matmul_precision='highest'
-    (unless the user already chose): TPU's DEFAULT lowers f32 dots to
-    single-pass bf16, which broke the co2 composite model (NMSE 2.34 vs
-    0.00023 measured — docs/RESULTS.md round-4 precision section)."""
+    """scfgp import must set jax_default_matmul_precision='highest'
+    (unless the user already chose): the GPU's DEFAULT lowers f32 dots to
+    TF32 tensor-core GEMMs, and reduced-precision GEMMs broke the co2
+    composite model (docs/RESULTS.md precision section)."""
     import jax
-    import scfgp_tpu  # noqa: F401 — import side effect under test
+    import scfgp  # noqa: F401 — import side effect under test
     assert jax.config.jax_default_matmul_precision == "highest"
+
+
+def test_compile_cache_honours_env_var(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it and the helper sets
+    no other directory."""
+    from scfgp.utils import compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_inside_checkout(monkeypatch):
+    from scfgp.utils import compile_cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        first = compile_cache.enable_compile_cache()
+        second = compile_cache.enable_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == first
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert first == second == os.path.join(repo, ".jax_cache")
+
+
+def test_compile_cache_path_is_the_same_in_another_process():
+    from scfgp.utils import compile_cache
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    out = subprocess.run(
+        [sys.executable, "-c", "from scfgp.utils.compile_cache import "
+         "enable_compile_cache as e; print(e())"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == compile_cache.DEFAULT_DIR
+
+
+def test_import_needs_neither_pallas_nor_matplotlib():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, scfgp; print(sorted(m for m in sys.modules if "
+         "m.startswith(('matplotlib', 'jax.experimental.pallas'))))"],
+        cwd=repo, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
